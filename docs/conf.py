@@ -2,7 +2,7 @@
 
 The reference ships a Sphinx doc build (/root/reference/doc/conf.py);
 this is its analog over this package's markdown docs.  Sphinx is not
-part of the baked TPU image, so the build is optional:
+a dependency, so the build is optional:
 
     pip install sphinx myst-parser && sphinx-build -b html docs docs/_build
 

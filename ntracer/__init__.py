@@ -2,7 +2,7 @@
 
 ``ntracer`` re-exports :mod:`ntracer_tpu` so code written against the
 original package (scripts, pickles, ``import ntracer.tracer4``) runs
-unmodified on the TPU framework.
+unmodified on the JAX framework.
 """
 
 import sys as _sys

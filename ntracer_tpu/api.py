@@ -3,7 +3,7 @@
 These mirror the per-dimension tracer modules of the reference
 (/root/reference/src/ntracer_body.hpp:3433-3463): every constructor takes the
 dimension explicitly, like the generic ``tracern`` module; the specialized
-``tracer3``..``tracer8`` modules re-export the same classes (on TPU the
+``tracer3``..``tracer8`` modules re-export the same classes (here the
 per-dimension specialization happens in jit static-shape caches instead of
 per-dimension compiled extensions).
 
@@ -26,8 +26,8 @@ f32 = np.float32
 ROUNDING_FUZZ = f32(np.finfo(np.float32).eps * 10)
 
 # The API-visible primitive batch width (tracer.hpp v_real::size).  The
-# reference uses the SIMD register width (4/8); on TPU we use the float32
-# sublane count.  Device kernels repack into 128-lane tiles regardless.
+# reference uses the SIMD register width (4/8); here it is a fixed 8.  The
+# device arrays are flat pools, whatever this width.
 BATCH_SIZE = 8
 
 
@@ -160,7 +160,7 @@ class Vector:
         return self
 
     def numpy(self):
-        """The backing (read-only) float32 array. TPU-framework extension."""
+        """The backing (read-only) float32 array. Framework extension."""
         return self._a
 
 

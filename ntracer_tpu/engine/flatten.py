@@ -1,7 +1,7 @@
 """Scene flattening: Python KD tree / primitives -> SoA device arrays.
 
 The reference's pointer-chasing KDBranch/KDLeaf tree with per-primitive
-virtual dispatch (tracer.hpp:792-1157) becomes, for the TPU engine:
+virtual dispatch (tracer.hpp:792-1157) becomes, for the device engine:
 
   * one SoA triangle pool (every triangle from every TriangleBatch/Triangle,
     ordered by k-d leaf traversal so pool chunks are spatially coherent),

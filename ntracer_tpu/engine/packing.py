@@ -39,13 +39,13 @@ def format_key(fmt: ImageFormat):
 
 def _pack_words(colors, key, colors_T=False):
     """Shared channel math: (R, 3) float32 -> list of (R,) uint32 words
-    holding each pixel's packed bits MSB-first (the TPU has no 64-bit
+    holding each pixel's packed bits MSB-first (JAX has no 64-bit
     integers by default; the MSB-first byte stream across words equals
     the reference's 64-bit-word layout, render.cpp:419-462).
 
     ``colors_T=True`` accepts (3, R) — channel rows are contiguous lane
-    vectors, skipping the relayout the column slices of an (R, 3) array
-    cost on TPU (the transposed shade pipeline produces this shape)."""
+    vectors, skipping the relayout of the column slices of an (R, 3)
+    array (the transposed shade pipeline produces this shape)."""
     channels, bpp, reverse = key
     if colors_T:
         r, g, b = colors[0], colors[1], colors[2]
@@ -116,8 +116,7 @@ def pack_device_stream(colors, key, permute=None, colors_T=False):
     (R//4, bpp) uint32 whose little-endian byte stream is identical to
     ``pack_device``'s (R, bpp) uint8 output (groups of 4 pixels = bpp
     words).  Staying in uint32 lanes skips pack_device's per-byte uint8
-    extract + stack relayout, which costs ~2.5 ms on a 1M-pixel frame
-    (byte ops are lane-hostile on the VPU).  Requires R % 4 == 0.
+    extract + stack relayout.  Requires R % 4 == 0.
 
     ``permute`` (optional) reorders PIXELS between the per-pixel word
     pack and the 4-pixel stream grouping: it receives an (R, k) array

@@ -332,7 +332,7 @@ def _leaf_occludes(leaf: KDLeaf, o, dvec, ldistance, skip, hits) -> bool:
 # child misses and the split plane is closer than the light (tracer.hpp:1298)
 # — for infinite-distance (global) lights that skips every far child, missing
 # real occluders.  The port keeps it (reference-exact, the default); the
-# TPU engine uses true any-hit semantics, and scripts/tpu_parity.py flips
+# device engine uses true any-hit semantics, and scripts/device_parity.py flips
 # this flag to validate the engine against exact occlusion.
 OCCLUDES_EARLY_OUT = True
 

@@ -10,7 +10,7 @@ Host-side (NumPy) port of the reference build pipeline:
   - build_kdtree                          tracer.hpp:2431-2455
 
 The output feeds both the Python KD node objects (oracle traversal) and the
-flattened device arrays for the TPU engine.  The hot path is the native C++
+flattened device arrays for the device engine.  The hot path is the native C++
 builder (ntracer_tpu/csrc/kd_builder.cpp), parallelized with a bounded thread pool like
 the reference's kd_node_worker_pool (tracer.hpp:2131-2271) and controlled by
 the user-visible ``extra_threads``; this NumPy implementation is the
@@ -511,8 +511,8 @@ def group_primitives(primitives):
     # Lazy batch_from_points sequence: all-triangle, one shared source,
     # row i == index i — no object is touched at all on this path; only
     # the handful of prototypes left ungrouped are materialized at the
-    # end (round 5: the 300k build's last ~3 s was exactly this
-    # object-materialization, VERDICT-r4 #4).
+    # end (the 300k build's tail was exactly this object
+    # materialization).
     lazy = getattr(primitives, "_src_arrays", None)
     if lazy is not None:
         starts0 = lazy["lo"]

@@ -4,7 +4,7 @@ Scalar intersection math is a float32 NumPy port of the reference kernels
 (/root/reference/src/tracer.hpp: ``hypercube_intersects`` 126-152,
 ``hypersphere_intersects`` 154-173, ``solid::intersects`` 251-276,
 ``triangle::intersects`` 411-440, ``triangle_batch::intersects`` 551-599).
-These methods are the CPU oracle; the TPU engine re-implements the same math
+These methods are the CPU oracle; the device engine re-implements the same math
 vectorized over ray tiles in JAX.
 """
 
@@ -215,9 +215,9 @@ class Triangle(Primitive):
 class TriangleBatch(PrimitiveBatch):
     """SoA batch of BATCH_SIZE triangles (tracer.hpp:532-641).
 
-    On TPU the lane dimension of device kernels plays this role; the API
-    class is kept for compatibility (BATCH_SIZE here is the float32 sublane
-    count, not a SIMD register width).
+    On the device the ray and triangle axes of the kernels play this role;
+    the API class is kept for compatibility (BATCH_SIZE here is a fixed 8,
+    not a SIMD register width).
     """
 
     __slots__ = ("_p1", "_fn", "_en", "_d", "_materials")
@@ -493,7 +493,7 @@ class TrianglePrototype(PrimitivePrototype):
         products route to the same BLAS kernel as ``np.dot``.
 
         ``material`` is one Material applied to all prototypes, or a
-        length-N sequence.  TPU-native extension: the reference has no
+        length-N sequence.  Framework extension: the reference has no
         batch constructor (its C++ per-object ctor is cheap).  Returns a
         :class:`TrianglePrototypeSequence` — an immutable sequence that
         materializes ordinary TrianglePrototype objects lazily on access

@@ -1,6 +1,6 @@
 """Pygame-backed CallbackRenderer (reference lib/ntracer/pygame_render.py).
 
-pygame is optional (not installed in TPU images); importing this module
+pygame is optional; importing this module
 without pygame raises ImportError only when PygameRenderer is instantiated.
 """
 

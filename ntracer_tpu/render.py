@@ -4,8 +4,8 @@ This module provides the Python API surface of the reference's ``render``
 extension module (/root/reference/src/render.cpp): ``Color``, ``Material``,
 ``Channel``, ``ImageFormat``, ``ChannelList``, ``Scene``, ``LockedError``,
 ``BlockingRenderer``, ``CallbackRenderer``, ``get_optimized_tracern`` and the
-``_*_unpickle`` functions.  Unlike the reference, rendering executes on TPU
-via a JAX wavefront engine (see :mod:`ntracer_tpu.engine`); the renderer
+``_*_unpickle`` functions.  Unlike the reference, rendering executes on the
+accelerator (an NVIDIA GPU) via a JAX wavefront engine (see :mod:`ntracer_tpu.engine`); the renderer
 classes here keep the same blocking/callback/abort semantics at frame/strip
 granularity.
 """
@@ -385,7 +385,7 @@ class Scene:
 # Renderers.
 #
 # The reference renders 32x32 chunks on a native thread pool
-# (render.cpp:324-563).  On TPU the whole frame is data-parallel on-device;
+# (render.cpp:324-563).  Here the whole frame is data-parallel on-device;
 # the host-visible contract we preserve is (a) blocking render returning
 # False when aborted, (b) asynchronous callback render, (c) abort at
 # sub-frame granularity, (d) the scene is locked while a render is in
@@ -393,7 +393,7 @@ class Scene:
 # --------------------------------------------------------------------------
 
 # Abort is honored between strips (the reference polls per 32-pixel block,
-# render.cpp:413; on TPU the whole strip is one device dispatch).
+# render.cpp:413; here the whole strip is one device dispatch).
 _ABORT_STRIP_ROWS = 32
 
 
@@ -526,7 +526,7 @@ class CallbackRenderer(_RendererBase):
                     # abort_render's "blocks until idle" contract covers
                     # callback execution too — a caller tearing down
                     # callback state right after abort_render must not
-                    # race a still-running callback (ADVICE-r3 #3)
+                    # race a still-running callback
                     try:
                         callback(self)
                     except Exception:

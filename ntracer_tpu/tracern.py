@@ -3,7 +3,7 @@
 Equivalent of the reference's ``ntracer.tracern`` extension module
 (src/tracern.cpp + ntracer_body.hpp with ``var::item_store``): every class
 takes the dimension explicitly.  The specialized ``tracer3``..``tracer8``
-modules re-export the same classes — on TPU, per-dimension specialization is
+modules re-export the same classes — here, per-dimension specialization is
 jit static-shape caching rather than separately compiled extensions.
 """
 

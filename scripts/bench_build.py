@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Scene-build benchmark: prototypes + k-d build wall time for a
-sphere_mesh(N) workload (the BASELINE.md "300k-triangle scene build"
-table; reference counterpart: tracer.hpp:2131-2354 build path driven
+sphere_mesh(N) workload (the 300k-triangle scene build; reference
+counterpart: tracer.hpp:2131-2354 build path driven
 through build_composite_scene).
 
 Works against either implementation:

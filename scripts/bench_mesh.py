@@ -15,33 +15,9 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import numpy as np
-
-
-def sphere_mesh(n_target):
-    """Lat/long tessellated unit sphere with ~n_target triangles."""
-    rows = max(4, int(math.sqrt(n_target / 4)))
-    cols = 2 * rows
-    th = np.linspace(0, math.pi, rows + 1)
-    ph = np.linspace(0, 2 * math.pi, cols + 1)
-    v = np.empty((rows + 1, cols + 1, 3), np.float32)
-    v[..., 0] = np.sin(th)[:, None] * np.cos(ph)[None, :]
-    v[..., 1] = np.sin(th)[:, None] * np.sin(ph)[None, :]
-    v[..., 2] = np.cos(th)[:, None]
-    tris = []
-    for i in range(rows):
-        for j in range(cols):
-            a, b, c, d = v[i, j], v[i + 1, j], v[i + 1, j + 1], v[i, j + 1]
-            if i:
-                tris.append((a, b, c))
-            if i != rows - 1:
-                tris.append((a, c, d))
-    tris = np.asarray(tris, np.float32)
-    area = np.linalg.norm(np.cross(tris[:, 1] - tris[:, 0],
-                                   tris[:, 2] - tris[:, 0]), axis=1)
-    return tris[area > 1e-10]
+from scenes import device_frame_ms, sphere_mesh  # noqa: E402
 
 
 def main():
@@ -55,7 +31,8 @@ def main():
 
     from ntracer import (NTracer, Material, ImageFormat, Channel,
                          BlockingRenderer)
-    from ntracer_tpu.engine import wavefront
+    import jax
+    from ntracer_tpu.engine import walk, wavefront
 
     nt = NTracer(3)
     mat = Material((1, 0.6, 0.4))
@@ -72,8 +49,8 @@ def main():
     scene.set_camera(cam)
 
     cfg, device, _ = wavefront.get_device_scene(scene)
-    kern = sorted(k.split("_")[0] for k in device
-                  if k.startswith(("res_gt", "kern_gt")))
+    impl = walk.trace_impl(jax.default_backend(), cfg.d,
+                           cfg.has_transparency)
 
     fmt = ImageFormat(w, h, [Channel(8, 1, 0, 0), Channel(8, 0, 1, 0),
                              Channel(8, 0, 0, 1)])
@@ -97,23 +74,11 @@ def main():
         advance()
     sec = total / args.frames
 
-    import jax.numpy as jnp
-
-    def sync(dev):
-        return float(jnp.sum(dev[:64].astype(jnp.int32)))
-
-    sync(wavefront.frame_device_arrays(scene, fmt))
-    t0 = time.perf_counter()
-    last = None
-    for _ in range(args.frames):
-        last = wavefront.frame_device_arrays(scene, fmt)
-        advance()
-    sync(last)
-    dev_sec = (time.perf_counter() - t0) / args.frames
+    dev_sec = device_frame_ms(scene, fmt, args.frames, advance) / 1e3
 
     print(json.dumps({
         "config": f"sphere mesh {len(tris)} tris {w}x{h}",
-        "kernels": kern,
+        "trace_impl": impl,
         "proto_s": round(t_proto, 2),
         "kd_build_s": round(t_build, 2),
         "ms_per_frame": round(sec * 1000, 2),

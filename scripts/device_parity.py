@@ -1,31 +1,26 @@
 #!/usr/bin/env python
-"""Engine-vs-oracle parity on the REAL TPU across feature mixes.
+"""Engine-vs-oracle parity on the device across feature mixes.
 
-The interpret-mode test suite runs the same comparisons on CPU; this script
-is the hardware gate (TPU-only numerics differences have bitten before —
-e.g. the bf16 matmul default).  For each scene it renders a full frame
-through the production engine (BlockingRenderer) and compares sampled
-pixels' 8-bit values against the scalar oracle.
+The interpret-mode test suite runs the same comparisons on the CPU; this
+script is the gate on the GPU itself, where device-only numerics
+(summation order, FMA contraction, a matrix product that slipped to
+TF32) would show.  For each scene it renders a full frame through the
+production engine (BlockingRenderer) and compares sampled pixels' 8-bit
+values against the scalar oracle.
 
-    python scripts/tpu_parity.py [--out PARITY_TPU.json] [--samples N]
+    python scripts/device_parity.py [--out FILE.json] [--samples N]
 
-Default 96 samples/scene (the committed baseline's own calibration
-point — VERDICT-r4 #7); the transparent/solids scenes now exercise the
-round-5 transposed K-buffer compose and solids finish on hardware.
+bench.py runs ``run()`` in its own process (one JAX process per card).
 
-Scenes: opaque pool (resident kernel), shadows + point light (occlusion
-kernel), reflections (bounce loop + compaction), transparency (K-buffer
-kernels), solids + triangles mixed, d=5 pool, HBM-path pool (VMEM budget
-forced down), and a d=10 generic-path scene.
+Scenes: opaque pool (walk kernel), shadows + point light (any-hit
+walk), reflections (bounce loop), transparency (K-buffer scan), solids +
+triangles mixed, d=5 pool, and a d=10 pool.
 """
 
 import argparse
 import json
 import os
 import sys
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -119,27 +114,6 @@ def scenes():
     _, s = _mesh_scene(5, 400, Material((0.6, 0.9, 0.8)))
     yield "opaque d=5", s
 
-    from ntracer_tpu.engine import resident_kernels as rk
-    saved = rk.POOL_VMEM_BUDGET
-    rk.POOL_VMEM_BUDGET = 4096          # force the HBM streaming path
-    try:
-        _, s = _mesh_scene(3, 900, Material((1, 0.7, 0.6)), seed=8,
-                           lights=True, shadows=True)
-        yield "hbm-path d=3", s
-
-        # transparent + HBM: the streaming K-buffer kernels (unbatched so
-        # the oracle's transparent semantics are width-independent)
-        _kdt.group_primitives = lambda prims: list(prims)
-        try:
-            _, s = _mesh_scene(3, 800, Material((0.7, 0.8, 1.0),
-                                                opacity=0.45),
-                               seed=12, lights=True, shadows=True)
-        finally:
-            _kdt.group_primitives = _grp
-        yield "hbm transparent d=3", s
-    finally:
-        rk.POOL_VMEM_BUDGET = saved
-
     nt = NTracer(10, force_generic=True)
     rng = np.random.RandomState(5)
     protos = []
@@ -155,33 +129,26 @@ def scenes():
     yield "generic d=10", s
 
 
-# Per-scene (off_by_one, big) at 96 samples from the committed round-3
-# artifact (commit 6192b5f): the "solids+tris d=4" corner is a FUZZ-edge
-# hit flip + quantization ties on solid silhouettes; "hbm transparent" is
-# the documented bounded-K truncation on deep stacks.  The gate fails on
-# ANY growth beyond these (scaled only when --samples exceeds 96).
+# Per-scene allowance (off_by_one, big) at 96 samples: the "solids+tris
+# d=4" scene has FUZZ-edge hit flips and quantization ties on solid
+# silhouettes.  The gate fails on ANY growth beyond these (scaled only
+# when --samples exceeds 96); every other scene must be exact.
 BASELINE_96 = {
     "solids+tris d=4": (6, 1),
-    "hbm transparent d=3": (5, 0),
 }
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(REPO, "PARITY_TPU.json"))
-    ap.add_argument("--samples", type=int, default=96)
-    ap.add_argument("--size", type=int, default=192)
-    args = ap.parse_args()
-
+def run(samples=96, size=192):
+    """Render every scene and compare it with the oracle.  Returns
+    {"backend", "size", "results": [per scene], "ok"}."""
     import jax
-    backend = jax.default_backend()
 
     # the engine uses true any-hit occlusion; the oracle default ports the
     # reference's early-out defect (kdnodes.OCCLUDES_EARLY_OUT).  Compare
     # against exact semantics here.
     from ntracer_tpu import kdnodes
     kdnodes.OCCLUDES_EARLY_OUT = False
-    W = H = args.size
+    W = H = size
     fmt = ImageFormat(W, H, [Channel(8, 1, 0, 0), Channel(8, 0, 1, 0),
                              Channel(8, 0, 0, 1)])
     results = []
@@ -193,8 +160,8 @@ def main():
 
         scene._set_view_size(W, H)
         rng = np.random.RandomState(0)
-        xs = rng.randint(0, W, args.samples)
-        ys = rng.randint(0, H, args.samples)
+        xs = rng.randint(0, W, samples)
+        ys = rng.randint(0, H, samples)
         bad = []
         near = 0
         for x, y in zip(xs, ys):
@@ -212,33 +179,38 @@ def main():
                     near += 1
                 else:
                     bad.append([int(x), int(y), o8.tolist(), got.tolist()])
-        row = dict(scene=name, samples=args.samples,
+        row = dict(scene=name, samples=samples,
                    mismatches=len(bad) + near, off_by_one=near,
                    big=len(bad),
                    nonzero_px=int((img.sum(axis=2) > 0).sum()))
         if bad:
             row["bad"] = bad[:5]
         # a real kernel regression shows deltas of tens across many
-        # pixels; the pass criterion is NO GROWTH over the committed
-        # per-scene baseline (ADVICE-r3 #1, second remedy): a systematic
-        # TPU-only off-by-one drift — e.g. a consistently dropped K-th
-        # transparent surface — must FAIL here, and the bound must not
-        # scale with --samples.  BASELINE_96 is the round-3 96-sample
-        # artifact (commit 6192b5f; re-measured bit-identical after the
-        # round-4 payload-epilogue kernels): two scenes have known
-        # FP-association corners, every other scene is exact.
+        # pixels; the pass criterion is NO GROWTH over the per-scene
+        # allowance: a systematic device-only off-by-one drift must FAIL
+        # here, and the bound must not scale with the sample count.
         base_ob1, base_big = BASELINE_96.get(name, (0, 0))
-        scale = max(1.0, args.samples / 96.0)
+        scale = max(1.0, samples / 96.0)
         if len(bad) > max(base_big, 1) or near > max(4, base_ob1 * scale):
             ok_all = False
         results.append(row)
         print(json.dumps(row), flush=True)
+    return dict(backend=jax.default_backend(), size=size, results=results,
+                ok=ok_all)
 
-    out = dict(backend=backend, size=args.size, results=results, ok=ok_all)
-    with open(args.out, "w") as f:
-        json.dump(out, f, indent=1)
-    print(("PASS" if ok_all else "FAIL"), "->", args.out, flush=True)
-    sys.exit(0 if ok_all else 1)
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", help="write the results as JSON here")
+    ap.add_argument("--samples", type=int, default=96)
+    ap.add_argument("--size", type=int, default=192)
+    args = ap.parse_args()
+    out = run(args.samples, args.size)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    print("PASS" if out["ok"] else "FAIL", flush=True)
+    sys.exit(0 if out["ok"] else 1)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ pixel.  Writes PARITY_FRAMES.json with per-config diff statistics.
 
 The reference renders in a subprocess (the two packages shadow the same
 ``ntracer`` module name); ntracer_tpu renders in-process on the default
-backend (TPU when available).
+backend (the GPU when available).
 
 Expected outcome: identical except a small set of boundary pixels where
 float32 summation-order differences flip a ROUNDING_FUZZ-tight edge test
@@ -138,7 +138,7 @@ def compare(name, ours, ref, classify=None):
 
 
 # ---------------------------------------------------------------------------
-# Mechanical diff-pixel classification (VERDICT r2 item 7): every differing
+# Mechanical diff-pixel classification: every differing
 # pixel is arbitrated in exact scalar math.  Verdicts:
 #   "tie"          — two primitives intersect the primary ray at (nearly)
 #                    equal t (coplanar faces): the winner is summation-order
@@ -244,7 +244,127 @@ def make_tris_classifier(scene, w, h):
     return classify
 
 
-def make_box_classifier(scene, w, h):
+def _pool_arrays(scene):
+    from ntracer_tpu.engine import wavefront
+    cfg, _, flat = wavefront.get_device_scene(scene)
+    a = {k: np.asarray(v) for k, v in flat.arrays.items()}
+    a["real"] = np.linalg.norm(a["tri_fn"], axis=1) > 0
+    a["opaque"] = a["mat_opacity"][a["tri_mat"]] >= 1
+    return cfg, a
+
+
+def _near_zero(t, scale):
+    """Hits at the ray's own origin (neighbours of the surface a shadow or
+    reflection ray leaves): their t > 0 test is a rounding coin-flip."""
+    return np.abs(t) <= 1e-4 * max(scale, 1.0)
+
+
+def _shadow_verdict(a, p, ld, dist, skip, scale):
+    """'fuzz-edge' or None for one shadow ray from ``p`` along ``ld`` up
+    to ``dist``, leaving primitive ``skip``: 'fuzz-edge' when its any-hit
+    answer can flip under reordered float32 math (float32 and float64
+    disagree, a hit before the light sits on a test boundary, or a
+    neighbour of the surface it leaves is hit at t ~ 0)."""
+    pool = (a["tri_p1"], a["tri_fn"], a["tri_en"], a["tri_dc"])
+    s32, w32, n32 = _pool_test(p, ld, *pool, np.float32)
+    s64, w64, _ = _pool_test(p, ld, *pool, np.float64)
+    keep_s = a["real"] & (np.arange(len(s32)) != skip)
+    b32 = keep_s & w32 & (s32 < dist)
+    b64 = keep_s & w64 & (s64 < dist)
+    if b32.any() != b64.any():
+        return "fuzz-edge"
+    edge = keep_s & (n32 < EDGE_TOL) & (s32 < dist * (1 + TIE_RTOL))
+    zero = keep_s & _near_zero(s32, scale) & (n32 < 1e-3)
+    if edge.any() or zero.any():
+        return "fuzz-edge"
+    return None
+
+
+def _ray_verdict(cfg, a, o, dv, skip, depth):
+    """'tie', 'fuzz-edge' or None for one ray and the rays it spawns
+    (shadow rays toward every light when shadows are on, the reflection
+    ray while the bounce depth allows), in the engine's conventions
+    (wavefront.shade_local)."""
+    pool = (a["tri_p1"], a["tri_fn"], a["tri_en"], a["tri_dc"])
+    t32, v32, m32 = _pool_test(o, dv, *pool, np.float32)
+    t64, v64, _ = _pool_test(o, dv, *pool, np.float64)
+    keep = a["real"] & (np.arange(len(t32)) != skip)
+    v32 &= keep
+    v64 &= keep
+    op32, op64 = v32 & a["opaque"], v64 & a["opaque"]
+    win32 = int(np.where(op32, t32, np.inf).argmin()) if op32.any() else -1
+    win64 = int(np.where(op64, t64, np.inf).argmin()) if op64.any() else -1
+    if win32 >= 0:
+        near = v32 & (t32 <= t32[win32] * (1 + TIE_RTOL))
+        if near.sum() >= 2:
+            return "tie"
+    if win32 != win64:
+        return "fuzz-edge"
+    cutoff = float(t32[win32]) * (1 + TIE_RTOL) if win32 >= 0 else np.inf
+    scale = float(np.abs(o).max())
+    cand = keep & (t32 <= cutoff)
+    if (cand & (t32 > 0) & (m32 < EDGE_TOL)).any() \
+            or (cand & _near_zero(t32, scale) & (m32 < 1e-3)).any():
+        return "fuzz-edge"
+    if win64 < 0:
+        return None
+
+    p = (o + t64[win64] * dv).astype(np.float32)
+    fn = a["tri_fn"][win64]
+    normal = fn / np.linalg.norm(fn) * (-1 if fn @ dv > 0 else 1)
+    if cfg.shadows:
+        rays = []
+        for pos in a["pl_pos"][:cfg.n_point_lights]:
+            lv = p - pos
+            dist = np.float32(np.linalg.norm(lv))
+            rays.append(((lv / dist).astype(np.float32), dist))
+        for gd in a["gl_dir"][:cfg.n_global_lights]:
+            rays.append(((-gd).astype(np.float32), np.float32(np.inf)))
+        for ld, dist in rays:
+            v = _shadow_verdict(a, p, ld, dist, win64, scale)
+            if v:
+                return v
+    refl = a["mat_refl"][a["tri_mat"][win64]]
+    if refl != 0 and depth < cfg.max_reflect_depth:
+        child = dv - normal * (2 * (dv @ normal))
+        child = (child / np.linalg.norm(child)).astype(np.float32)
+        return _ray_verdict(cfg, a, p, child, win64, depth + 1)
+    return None
+
+
+def classify_pixel(scene, x, y, w, h):
+    """Verdict for a composite-scene pixel whose engine colour differs
+    from the oracle's: 'tie' or 'fuzz-edge' when the primary ray or a ray
+    it spawns meets one of the rounding classes above, else 'genuine'.
+    Solids are not arbitrated."""
+    cfg, a = _pool_arrays(scene)
+    scene._set_view_size(w, h)
+    o, dv = _primary_ray(scene, x, y, w, h)
+    return _ray_verdict(cfg, a, o, dv, -1, 0) or "genuine"
+
+
+def classify_trace(scene, o, dv):
+    """Verdict for one ray whose nearest hit differs between two trace
+    implementations: 'tie', 'fuzz-edge' or 'genuine'."""
+    cfg, a = _pool_arrays(scene)
+    return _ray_verdict(cfg, a, np.asarray(o, np.float32),
+                        np.asarray(dv, np.float32), -1,
+                        cfg.max_reflect_depth) or "genuine"
+
+
+def classify_occlusion(scene, o, dv, ldist, skip):
+    """Verdict for one shadow ray whose any-hit answer differs between
+    two trace implementations: 'fuzz-edge' or 'genuine'."""
+    _, a = _pool_arrays(scene)
+    o = np.asarray(o, np.float32)
+    return _shadow_verdict(a, o, np.asarray(dv, np.float32),
+                           np.float32(ldist), int(skip),
+                           float(np.abs(o).max())) or "genuine"
+
+
+def make_box_classifier(scene, w, h, quantization=True):
+    """``quantization=False`` for float colour comparisons, where the
+    8-bit quantization class does not apply."""
     d = scene.dimension
     scene._set_view_size(w, h)
 
@@ -263,6 +383,8 @@ def make_box_classifier(scene, w, h):
             for j in range(d):
                 if j != i and abs(abs(float(p[j])) - float(1 + ROUNDING_FUZZ)) < EDGE_TOL:
                     return "fuzz-edge"
+        if not quantization:
+            return "genuine"
         oc = np.asarray(scene._pixel_color(x, y), np.float32)
         fr = np.abs(oc * 255 + 0.5 - np.round(oc * 255 + 0.5))
         if (fr < QUANT_TOL).any():

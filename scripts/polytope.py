@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Display or benchmark a regular polytope given its Schläfli symbol.
 
-TPU-native counterpart of the reference app (reference scripts/polytope.py):
+JAX counterpart of the reference app (reference scripts/polytope.py):
 same CLI (positional Schläfli components, --benchmark, --output, --frames,
 --screen, --fov, --cam-dist, --no-special) and the same rotating-camera
 benchmark loop, but the geometry construction is a kaleidoscope (Coxeter

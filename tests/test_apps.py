@@ -127,7 +127,7 @@ def test_polytope_png_output(tmp_path):
 
     out = tmp_path / "anim"
     out.mkdir()
-    env = dict(os.environ, JAX_PLATFORMS="cpu", NTRACER_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                SDL_VIDEODRIVER="dummy")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "polytope.py"),
@@ -152,7 +152,7 @@ def test_polytope_ffmpeg_pipe_rgb48be(tmp_path):
     from PIL import Image
 
     w = h = 32
-    env = dict(os.environ, JAX_PLATFORMS="cpu", NTRACER_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                SDL_VIDEODRIVER="dummy")
 
     png_dir = tmp_path / "png"
@@ -194,7 +194,7 @@ def test_polytope_benchmark_pipelined(tmp_path):
     import subprocess
     import sys
 
-    env = dict(os.environ, JAX_PLATFORMS="cpu", NTRACER_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                SDL_VIDEODRIVER="dummy")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "polytope.py"),
@@ -212,7 +212,7 @@ def test_hypercube_benchmark():
     import subprocess
     import sys
 
-    env = dict(os.environ, JAX_PLATFORMS="cpu", NTRACER_PLATFORM="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                SDL_VIDEODRIVER="dummy")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "hypercube.py"),

@@ -143,7 +143,7 @@ def test_sharded_render_matches_single(shape):
 
 @pytest.mark.parametrize("n_px", [1, 2, 4, 8])
 def test_px_scaling_fixed_per_shard(n_px):
-    """px-axis scaling (VERDICT-r3 #3): the frame grows with the shard
+    """px-axis scaling: the frame grows with the shard
     count so every shard renders the SAME number of rays, and the sharded
     output must equal the plain single-device render at every mesh size —
     the reference's output is likewise identical under any worker count
@@ -228,7 +228,7 @@ def test_sharded_transparency_matches_single():
 
 def test_render_packed_multidevice_matches_single(monkeypatch):
     """BlockingRenderer routes through the px mesh when several devices
-    exist (VERDICT r1 item 4); bytes must match the single-device path."""
+    exist; bytes must match the single-device path."""
     import jax
     from ntracer_tpu.engine import wavefront
     from ntracer_tpu.render import ImageFormat, Channel, BlockingRenderer
@@ -367,18 +367,16 @@ def test_callback_renderer_pipelined_queue():
     cr.abort_render()
 
 
-def test_sharded_kernel_path_matches_single(monkeypatch):
-    """Tensor-parallel (prim-sharded) pools keep the Pallas kernel fast
-    path: per-shard resident layouts with local ids (VERDICT r2 item 4).
-    2x2 px-by-prim mesh, per-shard ray count a RAY_BLOCK multiple so the
-    kernels actually engage; output must match single-device."""
+def test_sharded_kernel_path_matches_single(walk_interpret):
+    """Tensor-parallel (prim-sharded) pools keep the walk kernel: per-shard
+    chunk layouts with local ids.  2x2 px-by-prim mesh; output must match
+    single-device."""
     import jax
     from ntracer_tpu.parallel import mesh as pmesh
     from ntracer_tpu.engine import wavefront
 
     if len(jax.devices()) < 4:
         pytest.skip("not enough devices")
-    monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
 
     nt = NTracer(3)
     scene = _random_scene(nt, n=600, seed=13)
@@ -391,51 +389,8 @@ def test_sharded_kernel_path_matches_single(monkeypatch):
     total = w * h
     tile = -(-total // 2) * 2
     fn, arrs = pmesh.get_sharded_renderer(scene, m, tile)
-    assert "res_gt" in arrs, "per-shard kernel layouts were not built"
-    assert arrs["res_gt"].shape[0] == 2  # one layout per prim shard
-    sharded = pmesh.render_frame(scene, fmt, m)
-    assert np.abs(single - sharded).max() < 1e-5
-
-
-def test_sharded_transparent_hbm_kernel_path(monkeypatch):
-    """Prim-sharded TRANSPARENT pools beyond the VMEM budget keep the
-    streaming K-buffer kernel fast path (per-shard layouts ship opacity
-    rows); output must match single-device."""
-    import jax
-    from ntracer_tpu.parallel import mesh as pmesh
-    from ntracer_tpu.engine import wavefront
-    from ntracer_tpu.engine import resident_kernels as rk
-
-    if len(jax.devices()) < 4:
-        pytest.skip("not enough devices")
-    monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
-    monkeypatch.setattr(rk, "POOL_VMEM_BUDGET", 1024)
-
-    nt = NTracer(3)
-    glass = Material((1, 0.7, 0.7), opacity=0.4)
-    solid_m = Material((0.3, 0.8, 0.5))
-    rng = np.random.RandomState(31)
-    protos = []
-    for i in range(600):
-        base = rng.uniform(-2, 2, 3)
-        pts = [nt.Vector(*(base + rng.uniform(-0.5, 0.5, 3)))
-               for _ in range(3)]
-        protos.append(nt.TrianglePrototype(pts, glass if i % 2 else solid_m))
-    scene = nt.build_composite_scene(protos)
-    cam = nt.Camera()
-    cam.translate(nt.Vector(0, 0, -8))
-    scene.set_camera(cam)
-
-    w = h = 32
-    fmt = _Fmt(w, h)
-    scene._set_view_size(w, h)
-    single = wavefront.render_strip_composite(scene, fmt, 0, h)
-
-    m = pmesh.make_mesh(2, 2)
-    total = w * h
-    tile = -(-total // 2) * 2
-    fn, arrs = pmesh.get_sharded_renderer(scene, m, tile)
-    assert "res_opa" in arrs and "res_is_hbm" in arrs
+    assert "walk_gt" in arrs, "per-shard walk layouts were not built"
+    assert arrs["walk_gt"].shape[0] == 2  # one layout per prim shard
     sharded = pmesh.render_frame(scene, fmt, m)
     assert np.abs(single - sharded).max() < 1e-5
 
@@ -543,8 +498,8 @@ def test_callback_renderer_mutation_after_dispatch_uses_prior_state():
 
 
 def test_abort_render_waits_for_callback():
-    """abort_render blocks until idle INCLUDING callback execution
-    (ADVICE-r3 #3): a caller tearing down callback state right after
+    """abort_render blocks until idle INCLUDING callback execution:
+    a caller tearing down callback state right after
     abort_render must not race a still-running callback."""
     import threading
     import time as _time
@@ -575,7 +530,7 @@ def test_wide_channel_format_routes_to_exact_host_packer():
     """>23-bit integer channels route around the float32 device packer
     (wavefront._needs_host_pack): the rendered bytes must equal the
     reference's exact 64-bit packing of the engine's float colors, for
-    BOTH renderers (VERDICT-r3 #8b)."""
+    BOTH renderers."""
     import threading
     from ntracer_tpu.engine import wavefront, packing
     from ntracer_tpu.render import (BlockingRenderer, CallbackRenderer,
@@ -609,66 +564,11 @@ def test_wide_channel_format_routes_to_exact_host_packer():
     assert not wavefront._needs_host_pack(fmt8)
 
 
-def test_payload_env_path_matches_slot_gather(monkeypatch):
-    """NTRACER_PAYLOAD=1 (the in-kernel payload epilogue, kept for
-    hardware A/Bs) must render pixels identical to the default raw-slot +
-    slot-pack-gather path — both recover the same [fn, mat, gid] rows
-    (scripts/stage_split.py measured the gather path 8 ms/frame faster
-    on the flagship)."""
-    monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
-    from ntracer_tpu.engine import wavefront
-
-    nt = NTracer(3)
-    scene = _random_scene(nt, n=600, seed=21)
-    w = h = 32
-    fmt = _Fmt(w, h)
-    scene._set_view_size(w, h)
-    cfg, device, _ = wavefront.get_device_scene(scene)
-    assert "res_slot_pack" in device
-    # compare like for like: both renders through the ROW pipeline
-    # (NTRACER_PAYLOAD itself forces it), so the two programs differ
-    # ONLY in payload-vs-gather.
-    monkeypatch.setenv("NTRACER_NO_TRANSPOSED", "1")
-    wavefront._render_tile_composite.clear_cache()
-    default = np.asarray(
-        wavefront.render_strip_composite(scene, fmt, 0, h))
-
-    monkeypatch.setenv("NTRACER_PAYLOAD", "1")
-    # force retrace: the env is read at trace time, so drop the cached
-    # jitted artifacts (the device cache itself is unchanged)
-    wavefront._render_tile_composite.clear_cache()
-    wavefront._frame_packed_composite.clear_cache()
-    # spy: prove the retrace actually took the payload kernel path
-    from ntracer_tpu.engine import resident_kernels as rk
-    seen = []
-    real = rk.nearest_hit
-
-    def spy(*a, **kw):
-        seen.append((kw.get("payload", False), kw.get("raw_slot", False)))
-        return real(*a, **kw)
-
-    monkeypatch.setattr(rk, "nearest_hit", spy)
-    try:
-        paypath = np.asarray(
-            wavefront.render_strip_composite(scene, fmt, 0, h))
-    finally:
-        monkeypatch.delenv("NTRACER_PAYLOAD")
-        wavefront._render_tile_composite.clear_cache()
-        wavefront._frame_packed_composite.clear_cache()
-    assert (True, False) in seen, f"payload path not traced: {seen}"
-    # the KERNEL outputs (t, gid, fn payload rows) are bit-identical
-    # between the two paths (probed directly); the residual is XLA's
-    # per-program FMA-contraction choice in the shade chain — a ~1-ulp
-    # cross-program artifact (same class as PARITY.md's cross-program
-    # pack probe note), so the bound is one float32 ulp, not zero
-    np.testing.assert_allclose(default, paypath, rtol=2e-6, atol=2e-7)
-
-
 def test_render_packed_multidevice_swizzled_tiles(monkeypatch):
-    """The px-mesh packed renderer uses the same 32x16-px tiled ray order
-    as the single-chip path (coherent kernel blocks) with the unswizzle
-    applied to the packed words; at a frame geometry where the swizzle is
-    ACTIVE per shard (count % w == 0, rows per group % 16 == 0) the bytes
+    """The px-mesh packed renderer uses the same tiled ray order as the
+    single-device path (coherent walk blocks) with the unswizzle applied
+    to the packed words; at a frame geometry where the swizzle is ACTIVE
+    per shard (count % w == 0, rows per group % TILE_H == 0) the bytes
     must still match the single-device render exactly."""
     import jax
     from ntracer_tpu.engine import wavefront
@@ -698,13 +598,11 @@ def test_render_packed_multidevice_swizzled_tiles(monkeypatch):
     assert bytes(multi) == bytes(single)
 
 
-def test_px_sharded_renderer_has_no_collectives(monkeypatch):
+def test_px_sharded_renderer_has_no_collectives(walk_interpret):
     """The px-mesh production renderer must compile to ZERO cross-device
     collectives: pixels are embarrassingly parallel, every shard owns its
     rays and its replicated pool, and only packed bytes leave the device
-    (BASELINE.md px-sharding ceiling argument — per-chip throughput
-    scales linearly because the only collective is the frame gather,
-    which the host does by pulling per-shard slabs)."""
+    (the frame gather is the host pulling per-shard slabs)."""
     import jax
     from ntracer_tpu.parallel import mesh as pmesh
     from ntracer_tpu.engine import wavefront, packing
@@ -712,7 +610,6 @@ def test_px_sharded_renderer_has_no_collectives(monkeypatch):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device mesh")
-    monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
 
     scene = _random_scene(NTracer(3), n=60, seed=9)
     w, h = 32, 128
@@ -735,7 +632,7 @@ def test_px_sharded_renderer_has_no_collectives(monkeypatch):
     assert not found, f"px-only sharding must be collective-free: {found}"
 
 
-def test_prim_sharded_renderer_uses_collectives(monkeypatch):
+def test_prim_sharded_renderer_uses_collectives(walk_interpret):
     """Converse of the px test: tensor-parallel pool shards DO need a
     cross-shard winner reduction (all_gather + argmin), so the compiled
     px x prim program must contain collectives — proving the HLO
@@ -746,7 +643,6 @@ def test_prim_sharded_renderer_uses_collectives(monkeypatch):
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device mesh")
-    monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
 
     scene = _random_scene(NTracer(3), n=60, seed=9)
     w = h = 24
@@ -776,17 +672,16 @@ def test_prim_sharded_renderer_uses_collectives(monkeypatch):
 @pytest.mark.parametrize("variant", ["camera", "shadows", "reflective",
                                      "transparent", "solids",
                                      "transparent_solids"])
-def test_transposed_pipeline_matches_row_and_oracle(variant, monkeypatch):
-    """The transposed (k, R) post-trace pipeline (round 4: XLA lowers the
-    row-layout shade chain ~10x above bandwidth; the transposed twin runs
-    at ~bandwidth) must agree with BOTH the scalar oracle and the row
-    pipeline on kernel-path scenes — camera-light, lit+shadowed,
-    reflective, and (round 5) the transparent K-buffer compose and the
-    solids finish."""
+def test_transposed_pipeline_matches_row_and_oracle(variant, monkeypatch,
+                                                    walk_interpret):
+    """The walk + transposed (k, R) post-trace pipeline must agree with
+    BOTH the scalar oracle and the XLA scan + row pipeline — camera-light,
+    lit+shadowed, reflective and solids scenes.  Transparent pools keep
+    the scan and the row pipeline (the K-buffer has no walk), so those
+    variants check the oracle and that the scene stays off the walk."""
     import numpy as np
-    from ntracer_tpu.engine import wavefront
+    from ntracer_tpu.engine import walk, wavefront
 
-    monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
     nt = NTracer(3)
 
     def _hand_built(protos, lights=(), shadows=False):
@@ -880,38 +775,36 @@ def test_transposed_pipeline_matches_row_and_oracle(variant, monkeypatch):
 
     w = h = 32
     cfg, device, _ = wavefront.get_device_scene(scene)
-    assert wavefront._transposed_ok(device, cfg, w * h), \
-        "scene must qualify for the transposed pipeline"
+    transparent = variant.startswith("transparent")
+    assert wavefront._walk_ok(device) != transparent, \
+        "opaque scenes take the walk, transparent ones the scan"
 
     # the oracle defaults to the reference's occlusion early-out DEFECT
     # (PARITY.md defect list); the engine deliberately uses true any-hit,
-    # so compare against exact semantics like scripts/tpu_parity.py does
+    # so compare against exact semantics like scripts/device_parity.py
     from ntracer_tpu import kdnodes
     monkeypatch.setattr(kdnodes, "OCCLUDES_EARLY_OUT", False)
 
-    # transposed path vs the scalar oracle (sampled)
+    # walk + transposed path vs the scalar oracle (sampled)
     eng_t = np.asarray(_compare_sampled(scene, w=w, h=h, samples=30))
 
-    # row path on the same scene (retrace with the kill switch set)
-    monkeypatch.setenv("NTRACER_NO_TRANSPOSED", "1")
-    wavefront._render_tile_composite.clear_cache()
-    try:
-        eng_row = np.asarray(
-            wavefront.render_strip_composite(scene, _Fmt(w, h), 0, h))
-    finally:
-        monkeypatch.delenv("NTRACER_NO_TRANSPOSED")
-        wavefront._render_tile_composite.clear_cache()
+    # XLA scan + row path on the same scene
+    monkeypatch.setattr(walk, "trace_impl", lambda *a: "scan")
+    scene._device_cache = None
+    eng_row = np.asarray(
+        wavefront.render_strip_composite(scene, _Fmt(w, h), 0, h))
     np.testing.assert_allclose(eng_t, eng_row, atol=2e-5)
 
 
-def test_transposed_lights_no_shadows_matches_oracle(monkeypatch):
+def test_transposed_lights_no_shadows_matches_oracle(monkeypatch,
+                                                     walk_interpret):
     """Lights with shadows OFF take the else-arms of the transposed light
     loops (no occlusion queries, unmasked contributions) — compare
-    against the oracle and the row path like the shadowed variant."""
+    against the oracle and the scan + row path like the shadowed
+    variant."""
     import numpy as np
-    from ntracer_tpu.engine import wavefront
+    from ntracer_tpu.engine import walk, wavefront
 
-    monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
     nt = NTracer(3)
     scene = _random_scene(
         nt, n=600, seed=34,
@@ -920,57 +813,40 @@ def test_transposed_lights_no_shadows_matches_oracle(monkeypatch):
     assert not scene.shadows
     w = h = 32
     cfg, device, _ = wavefront.get_device_scene(scene)
-    assert wavefront._transposed_ok(device, cfg, w * h)
+    assert wavefront._walk_ok(device)
     eng_t = np.asarray(_compare_sampled(scene, w=w, h=h, samples=30))
 
-    monkeypatch.setenv("NTRACER_NO_TRANSPOSED", "1")
-    wavefront._render_tile_composite.clear_cache()
-    try:
-        eng_row = np.asarray(
-            wavefront.render_strip_composite(scene, _Fmt(w, h), 0, h))
-    finally:
-        monkeypatch.delenv("NTRACER_NO_TRANSPOSED")
-        wavefront._render_tile_composite.clear_cache()
+    monkeypatch.setattr(walk, "trace_impl", lambda *a: "scan")
+    scene._device_cache = None
+    eng_row = np.asarray(
+        wavefront.render_strip_composite(scene, _Fmt(w, h), 0, h))
     np.testing.assert_allclose(eng_t, eng_row, atol=2e-5)
 
 
-@pytest.mark.parametrize("n_px,n_prim", [(2, 2), (2, 4)])
-def test_prim_sharded_transposed_matches_row_and_single(
-        monkeypatch, n_px, n_prim):
-    """Round 5: prim-sharded pools ride the transposed (k, R) pipeline —
-    the cross-shard winner merge all_gathers lane-major (P, k, R)
-    tensors (wavefront._trace_finish_T).  A transparent+solids+shadows
-    scene exercises every merge arm: the winner argmin, the K-buffer
-    shard merge (same stable-sort candidate order as the row path), and
-    the solids insert-once guard.  The transposed sharded render must
-    match the row-path sharded render AND the single-device render.
-    The 2x4 case runs the merge at P=4 (4*K merge candidates, pool
-    padded to 4 shards); its row twin is skipped to bound runtime."""
-    import jax
-    from ntracer_tpu.parallel import mesh as pmesh
-    from ntracer_tpu.engine import wavefront
+def _prim_shard_scene(transparent):
+    """600 random triangles (every tenth its own material), a cube and a
+    sphere hand-built into one leaf (reference build-time solid placement
+    is defective, PARITY.md defects 6/9), a point light, shadows on.
+    ``transparent`` makes the tenth triangles (opacity 0.45) and the cube
+    (opacity 0.5) transparent."""
     from ntracer_tpu.primitives import CUBE, SPHERE
     from ntracer_tpu.kdnodes import KDLeaf
 
-    if len(jax.devices()) < n_px * n_prim:
-        pytest.skip("not enough devices")
-    monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
-
     nt = NTracer(3)
-    mat_t = Material((0.9, 0.7, 0.4), opacity=0.45)
+    op_t = dict(opacity=0.45) if transparent else {}
+    op_c = dict(opacity=0.5) if transparent else {}
     rng = np.random.RandomState(41)
     protos = []
     for i in range(600):
-        m = mat_t if i % 10 == 0 else Material((1, 0.5, 0.5))
+        m = Material((0.9, 0.7, 0.4), **op_t) if i % 10 == 0 \
+            else Material((1, 0.5, 0.5))
         base = rng.uniform(-2, 2, 3)
         pts = [nt.Vector(*(base + rng.uniform(-0.8, 0.8, 3)))
                for _ in range(3)]
         protos.append(nt.TrianglePrototype(pts, m))
-    # solids hand-built into one leaf (reference build-time solid
-    # placement is defective, PARITY.md defects 6/9)
     protos.append(nt.SolidPrototype(
         CUBE, nt.Vector(0.5, 0, -2), nt.Matrix.identity(),
-        Material((0.4, 0.9, 0.6), opacity=0.5)))
+        Material((0.4, 0.9, 0.6), **op_c)))
     protos.append(nt.SolidPrototype(
         SPHERE, nt.Vector(-1.5, 0.5, -1), nt.Matrix.identity(),
         Material((0.9, 0.4, 0.6))))
@@ -982,7 +858,27 @@ def test_prim_sharded_transposed_matches_row_and_single(
     scene.set_camera(cam)
     scene.add_light(nt.PointLight(nt.Vector(0, 4, -4), (1, 0.8, 0.6)))
     scene.set_shadows(True)
+    return scene
 
+
+@pytest.mark.parametrize("n_px,n_prim", [(2, 2), (2, 4)])
+def test_prim_sharded_transposed_matches_row_and_single(
+        monkeypatch, walk_interpret, n_px, n_prim):
+    """Prim-sharded opaque pools ride the walk + transposed (k, R)
+    pipeline — the cross-shard winner merge all_gathers lane-major
+    (P, k, R) tensors (wavefront._trace_finish_T), with replicated solids
+    competing in every shard's winner.  The transposed sharded render must
+    match the scan + row sharded render AND the single-device render.
+    The 2x4 case runs the merge at P=4 (pool padded to 4 shards); its row
+    twin is skipped to bound runtime."""
+    import jax
+    from ntracer_tpu.parallel import mesh as pmesh
+    from ntracer_tpu.engine import walk, wavefront
+
+    if len(jax.devices()) < n_px * n_prim:
+        pytest.skip("not enough devices")
+
+    scene = _prim_shard_scene(transparent=False)
     w = h = 32
     fmt = _Fmt(w, h)
     scene._set_view_size(w, h)
@@ -1003,21 +899,44 @@ def test_prim_sharded_transposed_matches_row_and_single(
     assert calls, "prim-sharded render must take the transposed pipeline"
 
     if n_prim == 2:
-        # row-path twin of the same sharded program (the mesh cache does
-        # not key on the env knob; drop it so the row build re-traces)
+        # scan + row twin of the same sharded program
+        monkeypatch.setattr(walk, "trace_impl", lambda *a: "scan")
+        scene._device_cache = None
         scene._mesh_cache = None
-        monkeypatch.setenv("NTRACER_NO_TRANSPOSED", "1")
-        try:
-            sharded_row = np.asarray(pmesh.render_frame(scene, fmt, m))
-        finally:
-            monkeypatch.delenv("NTRACER_NO_TRANSPOSED")
-            scene._mesh_cache = None
+        sharded_row = np.asarray(pmesh.render_frame(scene, fmt, m))
         np.testing.assert_allclose(sharded_t, sharded_row, atol=2e-5)
 
     np.testing.assert_allclose(sharded_t, single, atol=2e-5)
 
 
-def test_frame_args_cache_invalidation(monkeypatch):
+@pytest.mark.parametrize("n_px,n_prim", [(2, 2), (2, 4)])
+def test_prim_sharded_transparent_matches_single(n_px, n_prim):
+    """Transparent pools take the XLA scan + row pipeline, also under prim
+    sharding: each shard keeps its own K nearest transparent hits and the
+    shards' K-buffers merge by distance (wavefront._trace_finish).  The
+    transparent cube is replicated in every shard, so the insert-once
+    guards (K-buffer insertion and the occlusion filter product) must keep
+    it from counting P times.  At P=4 the merge sorts 4*K candidates."""
+    import jax
+    from ntracer_tpu.parallel import mesh as pmesh
+    from ntracer_tpu.engine import wavefront
+
+    if len(jax.devices()) < n_px * n_prim:
+        pytest.skip("not enough devices")
+
+    scene = _prim_shard_scene(transparent=True)
+    w = h = 32
+    fmt = _Fmt(w, h)
+    scene._set_view_size(w, h)
+    cfg, device, _ = wavefront.get_device_scene(scene)
+    assert cfg.has_transparency and not wavefront._walk_ok(device)
+    single = np.asarray(wavefront.render_strip_composite(scene, fmt, 0, h))
+    sharded = np.asarray(pmesh.render_frame(scene, fmt,
+                                            pmesh.make_mesh(n_px, n_prim)))
+    np.testing.assert_allclose(sharded, single, atol=2e-5)
+
+
+def test_frame_args_cache_invalidation(monkeypatch, walk_interpret):
     """The per-scene frame-argument cache (wavefront._frame_args) must be
     bit-transparent: cached dispatches equal uncached ones, and every
     mutation class — camera (own version, buffers-only re-upload),
@@ -1027,7 +946,6 @@ def test_frame_args_cache_invalidation(monkeypatch):
     from ntracer import (NTracer, Material, ImageFormat, Channel)
     from ntracer_tpu.engine import wavefront
 
-    monkeypatch.setenv("NTRACER_FORCE_KERNELS", "1")
     nt = NTracer(3)
     mat = Material((1, 0.5, 0.25))
     protos = [nt.TrianglePrototype([nt.Vector(0, 0, 2),
